@@ -1,8 +1,8 @@
-"""Online-mode (detector-in-loop) throughput vs offline mode, one chip.
+"""Online-mode (detector-in-loop) throughput vs offline mode, one device.
 
 The reference's online mode runs yolov2-tiny on a GPU thread so detection
 latency overlaps tracking on the CPU (/root/reference/src/semantic.cc:13-45).
-On a TPU there is no second device: the CNN and the tracker share the chip,
+Here the CNN and the tracker share one device,
 so "hiding" means the detector adds its own device time to the stream but
 never blocks the host (engine/pipeline.py async_detect) — the honest online
 number is throughput with the CNN dispatched every frame.

@@ -2,7 +2,7 @@
 //
 // The reference loads images on the hot path with cv::imread per frame
 // (main.cpp:160-162), stalling tracking on disk + PNG decode.  This library
-// is the TPU-runtime replacement: a C++ thread pool decodes left/right PNG
+// is the accelerator-side replacement: a C++ thread pool decodes left/right PNG
 // (or JPEG) pairs to float32 grayscale ahead of the consumer into a bounded
 // ring of buffers, so the Python/JAX side only ever memcpy's a ready frame.
 //

@@ -1,17 +1,17 @@
-"""stereo_semantic_vo_tpu — a TPU-native stereo semantic visual-odometry framework.
+"""stereo_semantic_vo_tpu — a stereo semantic visual-odometry framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 ``zssjh/stereo-semantic-vo`` (C++/CUDA): ORB feature extraction, stereo
 disparity/depth, YOLO semantic masking of dynamic objects, brute-force Hamming
 matching, RANSAC-PnP pose estimation, motion-only and local bundle adjustment,
 and KITTI/TUM trajectory output — all as pure-functional, fixed-shape, jitted
-computations that map onto the TPU MXU/VPU, with multi-chip scaling via
+computations for one accelerator (an NVIDIA GPU), with multi-device scaling via
 ``jax.sharding`` meshes (sharded Schur-complement BA, replicated semantic head).
 
 Layout:
   core/      SE3/SO3 Lie groups, camera models, typed configuration
-  kernels/   Pallas TPU kernels (Hamming popcount matcher, FAST score,
-             median filter, stereo cost volume)
+  kernels/   Hamming matcher forms, median filters, and the Pallas
+             (Triton) scanline SGM kernel of the dense engine
   ops/       ORB frontend, stereo matching, RANSAC-PnP, epipolar tests,
              LM bundle adjustment, YOLO CNN + NMS
   engine/    per-frame jitted tracking step, sliding-window local map,

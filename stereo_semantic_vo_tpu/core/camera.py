@@ -2,7 +2,7 @@
 
 Covers the geometry the reference spreads across frame.cc (UnprojectStereo
 :166-180, disp2Depth :140-164) and pnpmatch.cc (projection inside the matching
-loops) — batched over points so the whole keypoint set projects in one VPU op.
+loops) — batched over points so the whole keypoint set projects in one fused op.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def disparity_to_depth(cam: Camera, disparity: jax.Array, min_disp: float = 0.5)
     """depth = bf / disparity, invalid (<= min_disp) -> 0.
 
     The reference does this per pixel in disp2Depth (frame.cc:140-164); here it
-    is one masked VPU divide.  Returning 0 for invalid matches the reference's
+    is one masked elementwise divide.  Returning 0 for invalid matches the reference's
     downstream ``z > 0`` filtering.
     """
     valid = disparity > min_disp

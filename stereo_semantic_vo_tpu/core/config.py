@@ -20,24 +20,6 @@ import dataclasses
 from typing import Tuple
 
 
-def resolve_backend(value: str, tpu: str, cpu: str) -> str:
-    """Resolve an ``"auto"`` execution-backend knob at *dispatch* time.
-
-    Configs are frozen, hashable, and often constructed before JAX picks a
-    platform (or serialized and shipped elsewhere), so baking
-    ``jax.default_backend()`` into the config at construction would both
-    initialize the backend as a side effect and freeze a possibly-wrong
-    platform into a static jit argument.  Instead the config carries the
-    ``"auto"`` sentinel and every kernel-selection site calls this helper
-    while tracing — the platform queried is the one actually compiling.
-    """
-    if value != "auto":
-        return value
-    import jax
-
-    return tpu if jax.default_backend() == "tpu" else cpu
-
-
 @dataclasses.dataclass(frozen=True)
 class CameraConfig:
     """Stereo pinhole camera (reference: Stereo/KITTI00-02.yaml, Tracking.cc:24-39)."""
@@ -73,8 +55,8 @@ class ORBConfig:
     levels, scale 1.2 — frame.cc:75-79); its YAML asks for 2000/grid
     distribution (KITTI00-02.yaml:36-51) but that section is vestigial.
 
-    The TPU design detects on a fixed pyramid with per-cell top-k selection so
-    every shape is static.  max_keypoints is padded to a lane-friendly 512.
+    This design detects on a fixed pyramid with per-cell top-k selection so
+    every shape is static.  max_keypoints is padded to a power-of-two 512.
     """
 
     max_keypoints: int = 512          # fixed slot count (reference N=500, frame.cc:54)
@@ -95,11 +77,6 @@ class ORBConfig:
     steer: bool = True                # rotate the pattern by the IC angle
                                       # (False = upright BRIEF: more stable
                                       # bits when the platform has no roll)
-    fast_backend: str = "xla"         # "xla" (rolled ring stack) or "pallas"
-                                      # (tiled halo kernel, kernels/fast_score.py)
-    patch_backend: str = "xla"        # descriptor-patch extraction: "xla"
-                                      # (vmapped dynamic_slice) or "pallas"
-                                      # (tile-DMA kernel, kernels/patch_extract.py)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,17 +106,20 @@ class StereoConfig:
     # constant-P2 SGM (the pre-round-5 behavior).
     edge_p2: bool = False
     edge_p2_gamma: float = 10.0
-    # scanline aggregation backend: "xla" (lax.scan, one cross-section per
-    # step — latency-bound) | "pallas" (VMEM-streamed scanline kernel,
-    # kernels/sgm_scan.py) | "auto" (pallas on TPU, xla elsewhere)
-    dense_backend: str = "auto"
+    # scanline aggregation backend: "pallas" (the Triton scanline kernel,
+    # kernels/sgm_scan.py, on CUDA GPUs; lax.scan on every other platform)
+    # | "xla" (lax.scan everywhere, one cross-section per step)
+    dense_backend: str = "pallas"
     lr_consistency_px: float = 1.0    # LR check tolerance (MSA LRcheck, MSA.cpp:1027)
     refine: bool = True               # LR-guided third aggregation pass that
                                       # repairs inconsistent pixels
                                       # (MSA solve :1163-1167)
     uniqueness_ratio: float = 0.95
     min_disparity: float = 0.5        # below this the match is invalid
-    sparse_mode: str = "strips"       # "strips" (gather-heavy) | "volume" (VPU-heavy)
+    sparse_mode: str = "strips"       # "strips" (per-keypoint gathers) |
+                                      # "volume" (whole-image shifted maps) |
+                                      # "dense" (dense_disparity sampled at
+                                      # the keypoints)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,28 +140,21 @@ class MatcherConfig:
     # ORB-SLAM-class matcher uses, absent from the reference's free matching
     # (pnpmatch.cc:61-199).  0 disables (reference-faithful).
     search_radius_px: float = 0.0
-    backend: str = "popcount"         # "popcount" (XLA XOR+popcount) |
-                                      # "mxu" (int8 matmul) |
-                                      # "pallas" (fused distance+best2 kernel) |
-                                      # "auto" (measured winner per platform,
-                                      #   resolved at dispatch time)
-
-    def resolved_backend(self) -> str:
-        # measured winners (benchmarks/kernel_bench.json): fused Pallas kernel
-        # on TPU; off-TPU Pallas only interprets, so the MXU matmul form wins
-        return resolve_backend(self.backend, "pallas", "mxu")
+    backend: str = "popcount"         # "popcount" (XOR + population count) |
+                                      # "mxu" (+-1 int8 matmul)
 
     @property
     def use_mxu(self) -> bool:
-        return self.resolved_backend() == "mxu"
+        return self.backend == "mxu"
 
 
 @dataclasses.dataclass(frozen=True)
 class PnPConfig:
     """RANSAC PnP (reference cv::solvePnPRansac(100, 8.0, 0.99), pnpmatch.cc:227).
 
-    TPU-native: a fixed batch of hypotheses solved in parallel with vmapped
-    minimal solvers and argmax-by-inlier-count instead of a sequential loop.
+    Accelerator-shaped: a fixed batch of hypotheses solved in parallel with
+    vmapped minimal solvers and argmax-by-inlier-count instead of a
+    sequential loop.
     """
 
     num_hypotheses: int = 256
@@ -251,12 +224,6 @@ class BAConfig:
     # every mono gate satisfied — docs/ACCURACY.md).  False =
     # reference-faithful mono.
     stereo_pose: bool = False
-    # normal-equation builds: "xla" (einsum over a materialized (K,2,6) J)
-    # or "pallas" (fused residual+weight+J+accumulate, kernels/ba_hessian.py).
-    # Separate knobs because the measured winners differ on v5e
-    # (benchmarks/kernel_bench.json): motion-only -> xla, local blocks -> pallas
-    hessian_backend: str = "xla"        # motion-only BA build
-    local_hessian_backend: str = "xla"  # local/window BA block build
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,40 +264,27 @@ class VOConfig:
 
     @classmethod
     def kitti(cls, sequence: str = "00") -> "VOConfig":
-        """KITTI intrinsics + the measured-winner execution backends.
+        """KITTI intrinsics + the execution forms that won on an H100.
 
-        Winners per benchmarks/kernel_bench.json (TPU v5e, on-chip scan
-        timing, regenerated at HEAD — see docs/PERFORMANCE.md "Kernel
-        backends"): Pallas fused matcher (1.8x over the MXU matmul form),
-        Pallas tile sparse-stereo kernel (12.6x over the cost-volume form),
-        Pallas patch extraction (20x), XLA FAST scoring, XLA motion-BA
-        build.  The Pallas kernels run in interpreter mode off-TPU, which is
-        a correctness path, not a production one — on CPU the "auto" knobs
-        resolve to the fastest compiled XLA formulations instead.  Resolution
-        happens at *dispatch* time (resolve_backend above), so constructing a
-        config has no JAX side effects and a config built before platform
-        forcing (or shipped to a different host) still picks that host's
-        winners.  Upright BRIEF (steer=False) turns description into two
-        static one-hot MXU matmuls (~4x faster extraction) and is *more*
-        stable than steered BRIEF on a roll-free vehicle platform."""
+        The two XLA forms of sparse stereo and of the Hamming matcher were
+        timed against each other at these widths on the card (PERF.md,
+        "Findings"); the winners are set here.  Upright BRIEF
+        (steer=False) turns description into two static one-hot matmuls and
+        is *more* stable than steered BRIEF on a roll-free vehicle
+        platform."""
         seq = int(sequence)
         cam = CameraConfig.kitti_00_02() if seq <= 3 else CameraConfig.kitti_04_12()
         return cls(
             camera=cam,
-            orb=ORBConfig(steer=False, patch_backend="auto"),
-            matcher=MatcherConfig(backend="auto", search_radius_px=150.0),
+            orb=ORBConfig(steer=False),
+            matcher=MatcherConfig(backend="popcount", search_radius_px=150.0),
             pnp=PnPConfig(pose_jump_max_m=1.5, seed_bonus=8, max_velocity_m=4.0),
             # edge-aware P2 (gamma=5): measured winner on every urban
             # fixture vs the MSA goldens (+2-4.5pp agree@3px; the 8-path
             # variant measured a wash and stays out — docs/REAL_IMAGES.md)
-            stereo=StereoConfig(sparse_mode="auto", edge_p2=True,
+            stereo=StereoConfig(sparse_mode="strips", edge_p2=True,
                                 edge_p2_gamma=5.0),
-            # motion-only build: XLA wins (0.079 vs 0.113 ms); the local/window
-            # block build: the fused Pallas kernel wins 18x (0.0056 vs
-            # 0.101 ms at F=4 x L=2048 — kernel_bench.json at HEAD; round 5
-            # added the stereo residual row, so the production stereo-edge
-            # window BA path keeps the fused build)
-            ba=BAConfig(local_hessian_backend="auto", trim_px=10.0),
+            ba=BAConfig(trim_px=10.0),
         )
 
     @property

@@ -4,7 +4,7 @@ Replaces the reference's g2o `SE3Quat` exp/log (Thirdparty/g2o/g2o/types/
 se3quat.h) and the cv::Mat pose plumbing in src/convert.cc with batched,
 differentiable, jit-friendly tensor ops.  Everything is written to vmap
 cleanly so RANSAC hypotheses and BA residuals can be evaluated for thousands
-of poses at once on the VPU/MXU.
+of poses at once.
 
 Conventions: poses are 4x4 row-major world->camera transforms ``Tcw`` unless
 noted, matching the reference (frame.cc:66-73 maintains Tcw plus cached

@@ -1,4 +1,4 @@
-"""Sequence driver — the reference's main.cpp per-frame loop, TPU-shaped.
+"""Sequence driver — the reference's main.cpp per-frame loop, device-shaped.
 
 Responsibilities (cf. main.cpp:100-208): load frames, obtain detection boxes
 (offline files or the online YOLO head — here a jitted call, not a thread),
@@ -61,7 +61,7 @@ class VOPipeline:
     ):
         self.cfg = cfg
         self.detector = detector
-        # asynchronous online semantics: the TPU-native analogue of the
+        # asynchronous online semantics: the on-device analogue of the
         # reference's detector thread (src/semantic.cc:13-45, main.cpp:152).
         # Frame t tracks with the boxes detected on frame t-1 (the same one
         # -frame staleness the reference's thread exhibits); detection for

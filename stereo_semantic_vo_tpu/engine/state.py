@@ -1,4 +1,4 @@
-"""Fixed-shape VO state: the TPU-native replacement for the reference's
+"""Fixed-shape VO state: the device-resident replacement for the reference's
 heap object graph.
 
 The reference threads mutable ``frame*`` / ``mappoint*`` pointers and a
@@ -33,13 +33,13 @@ class VOState(NamedTuple):
     # last processed frame's keypoints
     last_uv: jax.Array        # (K, 2)
     last_desc: jax.Array      # (K, 8) uint32
-    last_desc_pm1: jax.Array  # (K, 256) int8 +-1 — MXU matching form
+    last_desc_pm1: jax.Array  # (K, 256) int8 +-1 — int8-matmul matching form
     last_valid: jax.Array     # (K,)
 
     # sliding-window local map ring buffer (M = window * K slots)
     map_Xw: jax.Array        # (M, 3) world positions
     map_desc: jax.Array      # (M, 8) uint32 descriptor snapshots
-    map_desc_pm1: jax.Array  # (M, 256) int8 unpacked +-1 (MXU matching form)
+    map_desc_pm1: jax.Array  # (M, 256) int8 unpacked +-1 (int8-matmul matching form)
     map_valid: jax.Array     # (M,) slot occupied
     map_bad: jax.Array       # (M,) judged dynamic (epipolar test)
     map_create_id: jax.Array  # (M,) int32 creating frame index

@@ -85,8 +85,7 @@ def _region_slots(frame_idx, region_frame, K, W):
 
 def _set_region(arr, region_frame, K, W, src):
     """Write a whole ring region as a dynamic_update_slice — the region is
-    contiguous, and DUS compiles to a copy instead of a scatter (scatters on
-    TPU serialize through the scalar core)."""
+    contiguous, and DUS compiles to a copy instead of a scatter."""
     start = jnp.mod(region_frame, W) * K
     idx = (start,) + (jnp.zeros((), jnp.int32),) * (arr.ndim - 1)
     return jax.lax.dynamic_update_slice(arr, src.astype(arr.dtype), idx)
@@ -178,7 +177,7 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     live = state.map_valid & ~state.map_bad & age_ok
 
     # ---- 3. last-frame matching (gate < 15) --------------------------------
-    # MXU form: hamming = (256 - <+-1 descs>) / 2 as one int8 matmul;
+    # int8 matmul form: hamming = (256 - <+-1 descs>) / 2;
     # popcount form: XOR + lax.population_count on the packed words
     if cfg.matcher.use_mxu:
         kp_pm1 = hamming.unpack_descriptors_pm1(kp.desc)
@@ -188,16 +187,11 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     live_last = jax.lax.dynamic_slice_in_dim(live, jnp.mod(t - 1, W) * K, K, axis=0)
     last_has_mp = state.last_valid & live_last
     T_pred = state.velocity @ state.T_cw
-    if cfg.matcher.resolved_backend() == "pallas":
-        from stereo_semantic_vo_tpu.kernels.matcher import fused_best_match
-
-        b_idx, b_dist, _ = fused_best_match(state.last_desc, kp.desc, last_has_mp, kp.valid)
+    if cfg.matcher.use_mxu:
+        dist_last = hamming.hamming_distance_matrix_mxu(state.last_desc_pm1, kp_pm1)
     else:
-        if cfg.matcher.use_mxu:
-            dist_last = hamming.hamming_distance_matrix_mxu(state.last_desc_pm1, kp_pm1)
-        else:
-            dist_last = hamming.hamming_distance_matrix(state.last_desc, kp.desc)
-        b_idx, b_dist, _ = hamming.masked_best_match(dist_last, last_has_mp, kp.valid)
+        dist_last = hamming.hamming_distance_matrix(state.last_desc, kp.desc)
+    b_idx, b_dist, _ = hamming.masked_best_match(dist_last, last_has_mp, kp.valid)
     accept3 = b_dist < cfg.matcher.last_frame_max_dist
     if cfg.matcher.search_radius_px > 0:
         # motion-prior gate: the winner must land near its map point's
@@ -236,18 +230,11 @@ def track_step(state: VOState, frame: FrameInput, cfg: VOConfig) -> tuple[VOStat
     map_candidates = live & ~in_last_region & ~map_bad
     cur_free = kp.valid & ~m3
     if cfg.use_local_map:
-        if cfg.matcher.resolved_backend() == "pallas":
-            from stereo_semantic_vo_tpu.kernels.matcher import fused_best_match
-
-            mb_idx, mb_dist, mb_second = fused_best_match(
-                state.map_desc, kp.desc, map_candidates, cur_free
-            )
+        if cfg.matcher.use_mxu:
+            dist_map = hamming.hamming_distance_matrix_mxu(state.map_desc_pm1, kp_pm1)
         else:
-            if cfg.matcher.use_mxu:
-                dist_map = hamming.hamming_distance_matrix_mxu(state.map_desc_pm1, kp_pm1)
-            else:
-                dist_map = hamming.hamming_distance_matrix(state.map_desc, kp.desc)
-            mb_idx, mb_dist, mb_second = hamming.masked_best_match(dist_map, map_candidates, cur_free)
+            dist_map = hamming.hamming_distance_matrix(state.map_desc, kp.desc)
+        mb_idx, mb_dist, mb_second = hamming.masked_best_match(dist_map, map_candidates, cur_free)
         accept5 = (mb_dist < cfg.matcher.local_map_max_dist) & (
             mb_second.astype(jnp.float32) > cfg.matcher.local_map_ratio * mb_dist.astype(jnp.float32)
         )

@@ -12,7 +12,7 @@ Weight file layout (parser.c load_weights_upto / load_convolutional_weights):
   then weights(n*c*size*size) in OIHW.  All little-endian float32.
 
 Batch-norm is folded into the conv weights at load time (inference-only, as
-the VO pipeline uses it) so the TPU forward pass is conv+bias+activation.
+the VO pipeline uses it) so the device forward pass is conv+bias+activation.
 """
 
 from __future__ import annotations
@@ -151,7 +151,7 @@ def load_weights(
             b = biases - scales * mean * inv_std
         else:
             b = biases
-        # OIHW -> HWIO (TPU-preferred conv layout)
+        # OIHW -> HWIO (the NHWC/HWIO conv layout models/yolo.py uses)
         params[info["index"]] = {"w": np.transpose(w, (2, 3, 1, 0)).copy(), "b": b}
     return params
 

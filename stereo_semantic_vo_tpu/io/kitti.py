@@ -37,7 +37,13 @@ def load_sequence_paths(seq_dir: str) -> SequencePaths:
 
 def load_image_gray(path: str) -> np.ndarray:
     """Decode an image to (H, W) float32 grayscale in [0, 255]."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"cannot decode {path}: PIL is not installed; install Pillow, or "
+            "build the native loader (native/Makefile, io/native_loader.py)"
+        ) from e
 
     img = Image.open(path).convert("L")
     return np.asarray(img, dtype=np.float32)

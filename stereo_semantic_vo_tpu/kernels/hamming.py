@@ -1,30 +1,23 @@
-"""Bulk 256-bit Hamming distance — the matching hot loop, TPU-native.
+"""Bulk 256-bit Hamming distance — the matching hot loop.
 
 The reference computes Hamming distances one pair at a time with a SWAR
 popcount inside doubly-nested scans over keypoints (pnpmatch.cc:14-30, used
-at :61-95 and :160-199).  On TPU the whole N_query x N_train distance matrix
+at :61-95 and :160-199).  Here the whole N_query x N_train distance matrix
 is computed at once, two ways:
 
-* ``hamming_distance_matrix`` — exact XOR+popcount on uint32 lanes (VPU).
-* ``hamming_distance_matrix_mxu`` — the speed-of-light path: descriptors are
-  unpacked once per frame to +-1 int8 vectors, and
-  ``hamming = (bits - dot(q, t)) / 2`` turns the distance matrix into a
-  single int8 MXU matmul (512x512x256 is a few microseconds of systolic
-  array time).
-* ``hamming_distance_matrix_pallas`` — fused Pallas kernel (XOR+popcount,
-  tiled over VMEM) for cases where the unpacked form isn't resident.
+* ``hamming_distance_matrix`` — exact XOR + population count on uint32
+  words; XLA fuses XOR, popcount and the word sum into one pass.
+* ``hamming_distance_matrix_mxu`` — descriptors are unpacked once per frame
+  to +-1 int8 vectors, and ``hamming = (bits - dot(q, t)) / 2`` turns the
+  distance matrix into a single int8 matmul with int32 accumulation.
 
-All three agree bit-exactly; tests assert it.
+Both agree bit-exactly; tests assert it.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 DESC_WORDS = 8  # 256 bits as 8 x uint32
 DESC_BITS = 256
@@ -39,7 +32,7 @@ def hamming_distance_matrix(query: jax.Array, train: jax.Array) -> jax.Array:
 def unpack_descriptors_pm1(desc: jax.Array) -> jax.Array:
     """(N, 8) uint32 -> (N, 256) int8 in {-1, +1} (bit b set -> +1).
 
-    Done once per frame; afterwards every matching step is an MXU matmul.
+    Done once per frame; afterwards every matching step is an int8 matmul.
     """
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (desc[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)
@@ -51,7 +44,8 @@ def hamming_distance_matrix_mxu(query_pm1: jax.Array, train_pm1: jax.Array) -> j
     """(Q, 256) int8 +-1 x (T, 256) int8 +-1 -> (Q, T) int32 Hamming.
 
     dot(q, t) = (#agree - #disagree) = 256 - 2*hamming, so
-    hamming = (256 - dot) / 2.  The matmul runs on the MXU in int8.
+    hamming = (256 - dot) / 2.  The matmul is int8 with int32 accumulation,
+    exact at any precision setting.
     """
     dot = jax.lax.dot_general(
         query_pm1,
@@ -60,37 +54,6 @@ def hamming_distance_matrix_mxu(query_pm1: jax.Array, train_pm1: jax.Array) -> j
         preferred_element_type=jnp.int32,
     )
     return (DESC_BITS - dot) >> 1
-
-
-def _hamming_kernel(q_ref, t_ref, out_ref):
-    q = q_ref[:]  # (TQ, 8) int32
-    t = t_ref[:]  # (T, 8) int32
-    x = jnp.bitwise_xor(q[:, None, :], t[None, :, :])
-    out_ref[:] = jnp.sum(jax.lax.population_count(x).astype(jnp.int32), axis=-1)
-
-
-@functools.partial(jax.jit, static_argnames=("block_q",))
-def hamming_distance_matrix_pallas(
-    query: jax.Array, train: jax.Array, block_q: int = 128
-) -> jax.Array:
-    """Pallas-fused XOR+popcount distance matrix, tiled over query blocks."""
-    Q = query.shape[0]
-    T = train.shape[0]
-    # bitcast keeps the bit pattern; popcount only cares about bits
-    qi = jax.lax.bitcast_convert_type(query, jnp.int32)
-    ti = jax.lax.bitcast_convert_type(train, jnp.int32)
-    grid = (pl.cdiv(Q, block_q),)
-    return pl.pallas_call(
-        _hamming_kernel,
-        out_shape=jax.ShapeDtypeStruct((Q, T), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((block_q, DESC_WORDS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, DESC_WORDS), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_q, T), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        interpret=jax.default_backend() == "cpu",
-    )(qi, ti)
 
 
 def masked_best_match(

@@ -3,8 +3,8 @@
 Replaces the reference's vendored Perreault constant-time median filter
 (Thirdparty/MB/ctmf.c, 447 LoC of sliding histograms) — used there on color
 images pre-gradient (MSA.cpp:58-59) and on raw disparity (MSA.cpp:1006).
-On TPU a 3x3 median is just a 9-element sort across stacked shifts: one
-fused VPU sort, no histograms.
+On an accelerator a 3x3 median is just a 9-element sort across stacked
+shifts: one fused sort, no histograms.
 """
 
 from __future__ import annotations

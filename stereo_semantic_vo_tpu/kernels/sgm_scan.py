@@ -1,45 +1,35 @@
-"""Pallas kernel: directional SGM scanline aggregation (Mosaic-aligned).
+"""Pallas kernel (Triton route): directional SGM scanline aggregation.
 
 The reference's dense engine spends its 2.41 s/frame in MSA's sequential
 two-pass tree DP (Thirdparty/MB/MSA.cpp:929-990, solve :1132-1169).  The XLA
-replacement (ops/dense_stereo._sgm_pass) already reformulates that as four
+replacement (ops/dense_stereo._sgm_pass) reformulates that as four
 directional scanline DPs, but a ``lax.scan`` whose step updates one (X, D)
-cross-section dispatches W=1241 (or H=376) tiny fused loops back-to-back —
-the recurrence is latency-bound, not bandwidth-bound, and was the repo's
-last not-TPU-shaped hot op (docs/PERFORMANCE.md "Dense stereo").
+cross-section runs W=1241 (or H=376) dependent loop iterations, and on a GPU
+each iteration costs at least one kernel launch.  The recurrence is
+latency-bound, and it is the one op of the dense path that XLA cannot fuse.
 
-This kernel streams the scan axis through VMEM instead, with the layout
-turned so the VPU is full at every step:
+This kernel keeps the whole recurrence inside one program per tile of
+scanlines:
 
-* volume layout ``(S, D, X)``: S = the scan axis (image columns for
-  horizontal passes, rows for vertical), D = disparity candidates on
-  *sublanes* (48 = 6 full f32 sublane tiles), X = the independent axis
-  (rows resp. columns) on *lanes*, 128 per grid tile.  One recurrence step
-  updates a (D, 128) block: 128 independent scanlines advance together.
-* grid ``(X tiles, S chunks)``: the S axis is blocked into chunks of
-  ``S_BLOCK`` positions; Pallas pipelines chunk c+1's HBM->VMEM stream while
-  chunk c computes (automatic double buffering), and the recurrence state
-  (D, 128) lives in VMEM scratch carried across the chunk axis of the grid.
-* inside a chunk, a Python-unrolled loop walks the S positions; per step:
-  sublane rolls for the d±1 terms, a cross-sublane min for the P2 floor,
-  and the masked min/add update — all (48, 128) VPU ops, no matmuls, no
-  gathers, no host or scan-carry round trips.
-* the d-1/d+1 boundary rows are refilled with +inf via an iota mask after
-  each roll (pltpu.roll wraps); the recurrence resets where the *global*
-  step index hits the start of real data, so explicit zero-padding of S to
-  a multiple of S_BLOCK never leaks into real outputs and forward/backward
-  traversals are exact mirrors.
-* ``reverse=True`` runs the backward sweep: the chunk index map flips and
-  the in-chunk loop walks backward.  An optional accumulator input lets the
-  backward call fuse ``fwd + bwd`` into its output write, saving one full
-  (S, D, X) round trip to HBM per direction pair.
-* optional per-position penalty plane ``p2x (S, X)``: the edge-aware P2
-  (P2 shrunk across intensity edges — the SGM analogue of MSA's
-  color-difference tree weights, MSA.cpp:152-191) rides as a second
-  streamed input; scalar-P2 callers skip it entirely.
+* grid ``(2, X tiles)``: axis 0 picks the sweep (0 forward, 1 backward),
+  axis 1 a tile of ``BLOCK_X`` independent scanlines.  Programs share
+  nothing, so they may run in any order on any SM.
+* the volume stays in its natural ``(H, W, D)`` layout; a horizontal sweep
+  reads ``vol[rows, s, :]``, a vertical one ``vol[s, cols, :]``, so no
+  transpose is materialized.  D is padded to the next power of two in
+  registers and masked on every load and store.
+* a ``fori_loop`` over the scan axis carries the ``(BLOCK_X, Dp)`` aggregate
+  of the previous position in registers.  The d-1 / d+1 neighbours come from
+  two products with 0/1 shift matrices at full float32 precision: each output
+  is exactly one input times 1.0 plus zeros, so the shift is exact.  (Triton
+  has no register shift along a tensor axis.)
+* the update uses the same min tree and add order as ``_sgm_pass``, so the
+  result is bit-identical to it (tests/test_sgm_pallas.py).
+* an optional per-position penalty plane (edge-aware P2, the SGM analogue of
+  MSA's color-difference tree weights, MSA.cpp:152-191) rides as a second
+  input; scalar-P2 callers skip it.
 
-Bit-parity with the XLA path is enforced by tests/test_sgm_pallas.py: the
-update uses the identical min-tree and add order as _sgm_pass.
+The two sweeps land in one ``(2, H, W, D)`` output that the caller sums.
 """
 
 from __future__ import annotations
@@ -49,154 +39,109 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-S_BLOCK = 64    # scan positions streamed per grid step (TPU)
-S_BLOCK_INTERP = 8  # small unroll for the CPU interpreter path (tests)
-X_TILE = 128    # independent scanlines per grid tile (VPU lane width)
+BLOCK_X = 16    # scanlines per program: the smallest row count tl.dot takes
+NUM_WARPS = 4
 _BIG = 1e9      # matches ops/dense_stereo._sgm_pass's boundary sentinel
 
 
-def _s_block() -> int:
-    return S_BLOCK if jax.default_backend() == "tpu" else S_BLOCK_INTERP
+def _kernel(vol_ref, *refs, axis, D, Dp, S, X, p1, p2, with_p2x):
+    if with_p2x:
+        p2x_ref, out_ref = refs
+    else:
+        (out_ref,) = refs
+    sweep = pl.program_id(0)          # 0 forward, 1 backward
+    x0 = pl.program_id(1) * BLOCK_X
+    rows = x0 + jnp.arange(BLOCK_X)
+    d_iota = jnp.arange(Dp)
+    real_d = d_iota < D
+    mask = (rows < X)[:, None] & real_d[None, :]
+    hp = jax.lax.Precision.HIGHEST
+    e_i = jax.lax.broadcasted_iota(jnp.int32, (Dp, Dp), 0)
+    d_i = jax.lax.broadcasted_iota(jnp.int32, (Dp, Dp), 1)
+    shift_m_mat = (e_i == d_i - 1).astype(jnp.float32)   # [:, d] <- [:, d-1]
+    shift_p_mat = (e_i == d_i + 1).astype(jnp.float32)   # [:, d] <- [:, d+1]
 
+    def at(ref, s):
+        if axis == 1:
+            return ref.at[pl.ds(x0, BLOCK_X), s, pl.ds(0, Dp)]
+        return ref.at[s, pl.ds(x0, BLOCK_X), pl.ds(0, Dp)]
 
-def _kernel_factory(D: int, S: int, n_chunks: int, s_block: int, p1: float,
-                    p2: float, reverse: bool, with_acc: bool, with_p2x: bool):
-    def step_update(prev, c, p2v):
+    def out_at(s):
+        if axis == 1:
+            return out_ref.at[sweep, pl.ds(x0, BLOCK_X), s, pl.ds(0, Dp)]
+        return out_ref.at[sweep, s, pl.ds(x0, BLOCK_X), pl.ds(0, Dp)]
+
+    def body(i, prev):
+        s = jnp.where(sweep == 0, i, S - 1 - i)
+        c = plgpu.load(at(vol_ref, s), mask=mask, other=0.0)
+        if with_p2x:
+            if axis == 1:
+                p2_ref_s = p2x_ref.at[pl.ds(x0, BLOCK_X), s]
+            else:
+                p2_ref_s = p2x_ref.at[s, pl.ds(x0, BLOCK_X)]
+            p2v = plgpu.load(p2_ref_s, mask=rows < X, other=0.0)[:, None]
+        else:
+            p2v = p2
         # EXACTLY _sgm_pass's min tree + op order (bit parity)
-        prev_min = jnp.min(prev, axis=0, keepdims=True)       # (1, X)
-        row = jax.lax.broadcasted_iota(jnp.int32, prev.shape, 0)
-        shift_m = jnp.where(row == 0, _BIG, pltpu.roll(prev, 1, 0))
-        shift_p = jnp.where(row == D - 1, _BIG, pltpu.roll(prev, D - 1, 0))
+        prev_min = jnp.min(jnp.where(real_d[None, :], prev, _BIG), axis=1,
+                           keepdims=True)
+        shift_m = jnp.dot(prev, shift_m_mat, precision=hp)
+        shift_m = jnp.where(d_iota[None, :] == 0, _BIG, shift_m)
+        shift_p = jnp.dot(prev, shift_p_mat, precision=hp)
+        shift_p = jnp.where(d_iota[None, :] >= D - 1, _BIG, shift_p)
         best = jnp.minimum(
             jnp.minimum(prev, prev_min + p2v),
             jnp.minimum(shift_m + p1, shift_p + p1),
         )
-        return c + best - prev_min
+        out = jnp.where(real_d[None, :], c + best - prev_min, 0.0)
+        # the sweep starts from the raw cost of its first position
+        out = jnp.where(i == 0, c, out)
+        plgpu.store(out_at(s), out, mask=mask)
+        return out
 
-    def kernel(*refs):
-        # refs: vol_ref, [acc_ref], [p2x_ref], out_ref, state
-        vol_ref = refs[0]
-        i = 1
-        acc_ref = refs[i] if with_acc else None
-        i += with_acc
-        p2x_ref = refs[i] if with_p2x else None
-        i += with_p2x
-        out_ref, state = refs[i], refs[i + 1]
-
-        chunk = pl.program_id(1)
-        first_gx = 0 if not reverse else S - 1
-
-        for j in range(s_block):
-            jj = s_block - 1 - j if reverse else j
-            if reverse:
-                gx = (n_chunks - 1 - chunk) * s_block + jj
-            else:
-                gx = chunk * s_block + jj
-            c = vol_ref[jj]                                   # (D, X)
-            if with_p2x:
-                p2v = p2x_ref[jj][None, :]                    # (1, X)
-            else:
-                p2v = p2
-            is_first = gx == first_gx
-            out = jnp.where(is_first, c, step_update(state[:], c, p2v))
-            state[:] = out
-            if with_acc:
-                out_ref[jj] = out + acc_ref[jj]
-            else:
-                out_ref[jj] = out
-
-    return kernel
+    jax.lax.fori_loop(0, S, body, jnp.zeros((BLOCK_X, Dp), jnp.float32))
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("p1", "p2", "reverse", "s_real", "use_p2x", "s_block"),
+    jax.jit, static_argnames=("axis", "p1", "p2", "interpret")
 )
-def _directional(vol, acc, p2x, p1, p2, reverse, s_real, use_p2x, s_block=S_BLOCK):
-    """vol: (S_pad, D, X_pad) with S_pad % s_block == X_pad % X_TILE == 0.
-    acc: same-shape accumulator to fuse into the output (or None).
-    p2x: (S_pad, X_pad) per-position P2 plane (or None; static switch)."""
-    S_pad, D, X_pad = vol.shape
-    n_chunks = S_pad // s_block
-    n_xt = X_pad // X_TILE
-    with_acc = acc is not None
-
-    kernel = _kernel_factory(
-        D, s_real, n_chunks, s_block, float(p1), float(p2), reverse, with_acc,
-        use_p2x,
+def sgm_sweeps(vol: jax.Array, p2x: jax.Array | None, *, axis: int,
+               p1: float, p2: float, interpret: bool = False) -> jax.Array:
+    """Forward and backward SGM sweeps of an (H, W, D) volume along ``axis``
+    (1 = horizontal, 0 = vertical).  Returns (2, H, W, D): [forward,
+    backward].  ``p2x`` (H, W), if given, replaces the scalar ``p2`` per
+    position."""
+    H, W, D = vol.shape
+    S, X = (W, H) if axis == 1 else (H, W)
+    with_p2x = p2x is not None
+    kernel = functools.partial(
+        _kernel, axis=axis, D=D, Dp=pl.next_power_of_2(D), S=S, X=X,
+        p1=float(p1), p2=float(p2), with_p2x=with_p2x,
     )
-
-    def smap(xt, sc):
-        return ((n_chunks - 1 - sc) if reverse else sc, 0, xt)
-
-    in_specs = [
-        pl.BlockSpec((s_block, D, X_TILE), smap, memory_space=pltpu.VMEM)
-    ]
-    operands = [vol]
-    if with_acc:
-        in_specs.append(
-            pl.BlockSpec((s_block, D, X_TILE), smap, memory_space=pltpu.VMEM)
-        )
-        operands.append(acc)
-    if use_p2x:
-        in_specs.append(
-            pl.BlockSpec(
-                (s_block, X_TILE),
-                lambda xt, sc: (smap(xt, sc)[0], xt),
-                memory_space=pltpu.VMEM,
-            )
-        )
-        operands.append(p2x)
-
+    operands = (vol, p2x) if with_p2x else (vol,)
     return pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct(vol.shape, jnp.float32),
-        grid=(n_xt, n_chunks),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (s_block, D, X_TILE), smap, memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((D, X_TILE), jnp.float32)],
-        interpret=jax.default_backend() == "cpu",
+        out_shape=jax.ShapeDtypeStruct((2, H, W, D), jnp.float32),
+        grid=(2, pl.cdiv(X, BLOCK_X)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name=f"sgm_sweeps_axis{axis}",
     )(*operands)
 
 
-def _pad_to(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def sgm_bidirectional(vol_sdx: jax.Array, p1: float, p2: float,
-                      p2x: jax.Array | None = None) -> jax.Array:
-    """Forward + backward aggregation along the leading axis of (S, D, X).
-
-    Returns the summed (S, D, X) aggregate (the backward kernel fuses the
-    add).  ``p2x`` (S, X), if given, replaces the scalar P2 per position —
-    the edge-aware penalty plane."""
-    S, D, X = vol_sdx.shape
-    sb = _s_block()
-    S_pad, X_pad = _pad_to(S, sb), _pad_to(X, X_TILE)
-    v = jnp.pad(vol_sdx, ((0, S_pad - S), (0, 0), (0, X_pad - X)))
-    use_p2x = p2x is not None
-    px = None
-    if use_p2x:
-        px = jnp.pad(p2x, ((0, S_pad - S), (0, X_pad - X)))
-    fwd = _directional(v, None, px, p1, p2, False, S, use_p2x, sb)
-    both = _directional(v, fwd, px, p1, p2, True, S, use_p2x, sb)
-    return both[:S, :, :X]
-
-
-def sgm_aggregate_pallas(vol_hwd: jax.Array, p1: float, p2: float,
+def sgm_aggregate_pallas(vol: jax.Array, p1: float, p2: float,
                          p2x_h: jax.Array | None = None,
-                         p2x_v: jax.Array | None = None) -> jax.Array:
+                         p2x_v: jax.Array | None = None,
+                         interpret: bool = False) -> jax.Array:
     """4-path SGM on an (H, W, D) volume via the scanline kernel.
 
-    Drop-in for ops/dense_stereo.sgm_aggregate: horizontal passes scan the
-    volume as (W, D, H), vertical as (H, D, W); the two bidirectional sums
-    are transposed back and added (XLA fuses transpose+add).  ``p2x_h``
-    (W, H) / ``p2x_v`` (H, W) are the optional per-position P2 planes for
-    the horizontal resp. vertical directions."""
-    h = sgm_bidirectional(jnp.transpose(vol_hwd, (1, 2, 0)), p1, p2, p2x_h)
-    v = sgm_bidirectional(jnp.transpose(vol_hwd, (0, 2, 1)), p1, p2, p2x_v)
-    return jnp.transpose(h, (2, 0, 1)) + jnp.transpose(v, (0, 2, 1))
+    Drop-in for the lax.scan form of ops/dense_stereo.sgm_aggregate, with
+    the same summation order (horizontal forward, horizontal backward,
+    vertical forward, vertical backward).  ``p2x_h`` / ``p2x_v`` (H, W) are
+    the optional per-position P2 planes of the two directions."""
+    h = sgm_sweeps(vol, p2x_h, axis=1, p1=p1, p2=p2, interpret=interpret)
+    v = sgm_sweeps(vol, p2x_v, axis=0, p1=p1, p2=p2, interpret=interpret)
+    return h[0] + h[1] + v[0] + v[1]

@@ -2,7 +2,7 @@
 
 Replaces darknet's C/CUDA inference engine (Thirdparty/darknet/src/network.c
 forward_network :188 / forward_network_gpu :762, convolutional cudnn kernels)
-with XLA: conv-BN(folded)-leaky blocks in NHWC feeding the MXU, maxpool via
+with XLA: conv-BN(folded)-leaky blocks in NHWC feeding cuDNN/XLA convolutions, maxpool via
 reduce_window, region (YOLOv2, region_layer.c:76-90 box decode) and yolo
 (YOLOv3) heads, letterboxing (yolo_v3.c YoloDetect), and fixed-shape greedy
 NMS (box.c do_nms_sort semantics, IoU 0.45).
@@ -223,7 +223,7 @@ def unletterbox_boxes(
 class YoloDetector:
     """cfg + weights -> a jitted detect(image) -> Detections callable.
 
-    The TPU-native replacement for the reference's Semantic thread
+    The on-device replacement for the reference's Semantic thread
     (src/semantic.cc) — detection is a pure jitted call inside the frame
     step, not an unsynchronized producer/consumer thread.
     """

@@ -1,4 +1,4 @@
-"""YOLO training path — the TPU-native replacement for darknet's trainer.
+"""YOLO training path — the JAX replacement for darknet's trainer.
 
 The reference ships a full CNN *training* engine beside inference
 (Thirdparty/darknet/src/detector.c:train_detector, network.c train_network /
@@ -22,7 +22,7 @@ capabilities as one jitted value-and-grad step over a device mesh:
 * SGD with momentum + decoupled conv-weight decay, matching
   convolutional_layer update (axpy -decay*batch on weights only);
 * data-parallel scaling: the train step is pure, so it shards over the
-  ``data`` axis of a Mesh with a psum of gradients — the TPU-native analogue
+  ``data`` axis of a Mesh with a psum of gradients — the JAX analogue
   of darknet's (absent) multi-GPU path.
 
 Deliberate divergence (documented, not accidental): darknet's
@@ -507,7 +507,7 @@ class TrainState(NamedTuple):
 class YoloTrainer:
     """cfg-driven trainer: jitted SGD(momentum, decay) value-and-grad step.
 
-    The TPU-native analogue of darknet's train_detector loop
+    The JAX analogue of darknet's train_detector loop
     (detector.c:train_detector) minus the disk-based data loader: feed
     (images, truths, truths_mask) batches, get a new TrainState + stats.
 

@@ -4,7 +4,7 @@ Replaces the reference's g2o motion-only BA (src/Optimizer.cc:15-86: one
 VertexSE3Expmap, one monocular EdgeSE3ProjectXYZOnlyPose per matched map
 point, Huber delta=sqrt(5.991), dense 6x6 solve, LM, 10 iterations) with a
 ``lax.scan`` over LM steps.  All residuals and Jacobians for the whole
-keypoint set are evaluated in one fused VPU pass; the normal equations are a
+keypoint set are evaluated in one fused pass; the normal equations are a
 single 6x6 solve.  Everything vmaps, so RANSAC hypothesis refinement and
 multi-frame local BA reuse the same pieces.
 
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from stereo_semantic_vo_tpu.core import lie
 from stereo_semantic_vo_tpu.core.camera import Camera
-from stereo_semantic_vo_tpu.core.config import BAConfig, resolve_backend
+from stereo_semantic_vo_tpu.core.config import BAConfig
 from stereo_semantic_vo_tpu.core.precision import f32_geometry
 
 
@@ -130,19 +130,6 @@ def motion_only_ba(
             else jnp.ones_like(ur)
         )
 
-    use_pallas = (
-        resolve_backend(cfg.hessian_backend, "xla", "xla") == "pallas"
-        and use_huber
-        and not stereo  # the fused motion kernel is mono-only
-    )
-    if use_pallas:
-        # fused build: the (K, 2, 6) Jacobian never materializes
-        # (kernels/ba_hessian.py); transposed operands prepared once.  The
-        # trim classification folds into the mask, so the kernel is unchanged.
-        from stereo_semantic_vo_tpu.kernels.ba_hessian import motion_hessian_gradient
-
-        Xt = X_w.T
-        uvt = uv.T
 
     def stereo_residual(T):
         """(K,) stereo-row residual (u_R pred - u_R obs) * mask, masked."""
@@ -169,31 +156,26 @@ def motion_only_ba(
         # the trim mask m is classified once at the seed and closed over —
         # it is loop-invariant, so it rides the trace, not the carry
         T, lam, cost = carry
-        if use_pallas:
-            H, g, _ = motion_hessian_gradient(
-                T, Xt, uvt, m[None, :], cam, float(cfg.huber_delta)
-            )
-        else:
-            _, (r, w_geom, r2) = robust_cost(T, m)
-            w = w_geom * (huber_weights(r2, cfg.huber_delta) if use_huber else 1.0)
-            J = _pose_jacobian(T, X_w, cam)                   # (K, 2, 6)
-            Jw = J * w[:, None, None]
-            H = jnp.einsum("kif,kig->fg", Jw, J)              # (6, 6)
-            g = jnp.einsum("kif,ki->f", Jw, r)                # (6,)
-            if stereo:
-                # stereo row: d(u_R)/dxi = d(u)/dxi + bf/z^2 * dz/dxi,
-                # dz/dxi = [0, 0, 1, py, -px, 0] (left-mult twist)
-                pc = lie.transform_points(T, X_w)
-                x_, y_ = pc[..., 0], pc[..., 1]
-                z_ = jnp.where(jnp.abs(pc[..., 2]) > 1e-6, pc[..., 2], 1e-6)
-                b2 = cam.bf / (z_ * z_)
-                zero = jnp.zeros_like(z_)
-                one = jnp.ones_like(z_)
-                dz = jnp.stack([zero, zero, one, y_, -x_, zero], axis=-1)
-                Js = (J[:, 0, :] + b2[:, None] * dz) * urm[:, None]
-                rs = stereo_residual(T)
-                H = H + jnp.einsum("kf,kg->fg", Js * w[:, None], Js)
-                g = g + jnp.einsum("kf,k->f", Js * w[:, None], rs)
+        _, (r, w_geom, r2) = robust_cost(T, m)
+        w = w_geom * (huber_weights(r2, cfg.huber_delta) if use_huber else 1.0)
+        J = _pose_jacobian(T, X_w, cam)                   # (K, 2, 6)
+        Jw = J * w[:, None, None]
+        H = jnp.einsum("kif,kig->fg", Jw, J)              # (6, 6)
+        g = jnp.einsum("kif,ki->f", Jw, r)                # (6,)
+        if stereo:
+            # stereo row: d(u_R)/dxi = d(u)/dxi + bf/z^2 * dz/dxi,
+            # dz/dxi = [0, 0, 1, py, -px, 0] (left-mult twist)
+            pc = lie.transform_points(T, X_w)
+            x_, y_ = pc[..., 0], pc[..., 1]
+            z_ = jnp.where(jnp.abs(pc[..., 2]) > 1e-6, pc[..., 2], 1e-6)
+            b2 = cam.bf / (z_ * z_)
+            zero = jnp.zeros_like(z_)
+            one = jnp.ones_like(z_)
+            dz = jnp.stack([zero, zero, one, y_, -x_, zero], axis=-1)
+            Js = (J[:, 0, :] + b2[:, None] * dz) * urm[:, None]
+            rs = stereo_residual(T)
+            H = H + jnp.einsum("kf,kg->fg", Js * w[:, None], Js)
+            g = g + jnp.einsum("kf,k->f", Js * w[:, None], rs)
         Hl = H + lam * jnp.diag(jnp.diagonal(H) + 1e-9)
         delta = -jnp.linalg.solve(Hl, g)
         T_new = lie.se3_exp(delta) @ T

@@ -5,11 +5,11 @@ spanning-arborescence segmentation + Kruskal merge + two-pass tree DP with
 exponential similarity weights, run three times per frame (right base, left
 base, refine — solve :1132-1169).  The tree sweeps are sequential over an
 irregular spanning tree — hostile to any SIMD/systolic hardware (SURVEY.md §7
-"Hard parts").  The TPU-native replacement keeps MSA's *cost definition*
+"Hard parts").  The accelerator replacement keeps MSA's *cost definition*
 (truncated color + truncated gradient mix, MSA.cpp:78-108) and swaps the
 aggregator for semi-global matching: 4 directional scanline DPs where each
 ``lax.scan`` step updates an entire row/column with the 64-wide disparity
-axis vectorized on the VPU — equivalent smoothing power, compiler-friendly
+axis vectorized — equivalent smoothing power, compiler-friendly
 control flow.
 
 Pipeline (mirrors solve()'s structure): cost volume -> 4-path SGM -> WTA +
@@ -29,8 +29,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from stereo_semantic_vo_tpu.core.config import StereoConfig, resolve_backend
+from stereo_semantic_vo_tpu.core.config import StereoConfig
 from stereo_semantic_vo_tpu.kernels.median import median3x3
+from stereo_semantic_vo_tpu.kernels.sgm_scan import sgm_aggregate_pallas
 
 
 class DenseDisparity(NamedTuple):
@@ -171,31 +172,32 @@ def sgm_aggregate(
 ) -> jax.Array:
     """4-path SGM (horizontal both ways, vertical both ways).
 
-    Backend per ``cfg.dense_backend``: the VMEM-streamed Pallas scanline
-    kernel on TPU, the lax.scan formulation elsewhere (bit-identical,
-    tests/test_sgm_pallas.py).  ``p2x_h``/``p2x_v`` (H, W) are optional
-    per-position P2 planes (edge_p2_planes); ``scale`` multiplies all
-    penalties (the refine pass runs at 0.5 — MSA's setExp(sigma/2))."""
+    Backend per ``cfg.dense_backend``: ``"pallas"`` lowers to the Triton
+    scanline kernel on CUDA GPUs and to the lax.scan formulation on every
+    other platform (bit-identical, tests/test_sgm_pallas.py); ``"xla"`` is
+    the lax.scan formulation everywhere.  ``p2x_h``/``p2x_v`` (H, W) are
+    optional per-position P2 planes (edge_p2_planes); ``scale`` multiplies
+    all penalties (the refine pass runs at 0.5 — MSA's setExp(sigma/2))."""
     p1 = cfg.p1 * scale
     p2 = cfg.p2 * scale
     if p2x_h is not None:
         p2x_h = p2x_h * scale
     if p2x_v is not None:
         p2x_v = p2x_v * scale
-    backend = resolve_backend(cfg.dense_backend, "pallas", "xla")
-    if backend == "pallas":
-        from stereo_semantic_vo_tpu.kernels.sgm_scan import sgm_aggregate_pallas
 
-        return sgm_aggregate_pallas(
-            vol, p1, p2,
-            p2x_h=None if p2x_h is None else p2x_h.T,
-            p2x_v=p2x_v,
-        )
-    acc = _sgm_pass(vol, p1, p2, 1, False, p2x_h)
-    acc = acc + _sgm_pass(vol, p1, p2, 1, True, p2x_h)
-    acc = acc + _sgm_pass(vol, p1, p2, 0, False, p2x_v)
-    acc = acc + _sgm_pass(vol, p1, p2, 0, True, p2x_v)
-    return acc
+    def scan4(v):
+        acc = _sgm_pass(v, p1, p2, 1, False, p2x_h)
+        acc = acc + _sgm_pass(v, p1, p2, 1, True, p2x_h)
+        acc = acc + _sgm_pass(v, p1, p2, 0, False, p2x_v)
+        return acc + _sgm_pass(v, p1, p2, 0, True, p2x_v)
+
+    if cfg.dense_backend == "xla":
+        return scan4(vol)
+    return jax.lax.platform_dependent(
+        vol,
+        cuda=lambda v: sgm_aggregate_pallas(v, p1, p2, p2x_h, p2x_v),
+        default=scan4,
+    )
 
 
 def _wta_subpixel(agg: jax.Array, min_disp: float) -> jax.Array:
@@ -204,9 +206,8 @@ def _wta_subpixel(agg: jax.Array, min_disp: float) -> jax.Array:
     parabola's pixel-locking bias).
 
     Gather-free: the neighbours of the argmin are picked with one-hot
-    masked reductions along D instead of ``take_along_axis`` — on TPU the
-    three per-pixel gathers were 17.6 ms/frame of scalarized address math,
-    the masked reductions fuse into two streaming traversals of agg."""
+    masked reductions along D instead of ``take_along_axis``: the masked
+    reductions fuse into two streaming traversals of agg."""
     D = agg.shape[-1]
     best = jnp.argmin(agg, axis=-1)
     d_iota = jnp.arange(D, dtype=jnp.int32)

@@ -6,7 +6,7 @@ The reference re-detects ORB on both frames, BF-matches, keeps matches
 tested against F: a point-to-epipolar-line distance over 0.1 px brands the
 map point a moving object and poisons it (mp->bad, pnpmatch.cc:103-144).
 
-TPU-native version: one normalized least-squares 8-point fit over *all*
+Batched version: one normalized least-squares 8-point fit over *all*
 masked background matches at once (a 9x9 eigenproblem instead of a RANSAC
 loop), hardened with a few IRLS reweighting rounds on the Sampson distance —
 the Hamming gate (<15) reduces but does not eliminate gross outliers, and a

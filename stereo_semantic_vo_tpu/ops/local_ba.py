@@ -3,7 +3,7 @@ Levenberg-Marquardt with Schur-complement elimination of the landmark block.
 
 The reference has no local BA (only the motion-only pose optimization,
 src/Optimizer.cc) but vendors g2o's full sparse-block machinery for it
-(Thirdparty/g2o/g2o/core/block_solver.hpp).  This module is the TPU-native
+(Thirdparty/g2o/g2o/core/block_solver.hpp).  This module is the dense-batched
 replacement: the BA normal equations are built as dense *batched blocks*
 
   H = [ Hcc  Hcp ]   Hcc: (F, 6, 6) block-diagonal pose blocks
@@ -32,7 +32,7 @@ import jax.numpy as jnp
 
 from stereo_semantic_vo_tpu.core import lie
 from stereo_semantic_vo_tpu.core.camera import Camera
-from stereo_semantic_vo_tpu.core.config import BAConfig, resolve_backend
+from stereo_semantic_vo_tpu.core.config import BAConfig
 from stereo_semantic_vo_tpu.ops.ba import huber_weights
 from stereo_semantic_vo_tpu.core.precision import f32_geometry
 
@@ -122,33 +122,8 @@ def _residual_and_jacobians(
 @f32_geometry
 def build_normal_equations(
     poses, points, obs_uv, obs_mask, cam: Camera, huber_delta: float,
-    backend: str = "xla",
     obs_ur=None, obs_r_mask=None,
 ) -> NormalEq:
-    if backend == "pallas":
-        # fused landmark-block build (kernels/ba_hessian.local_ba_blocks):
-        # Jc/Jp never materialize, blocks accumulate in VMEM.  Stereo edges
-        # ride as a packed (F, 2, L) [u_R, validity] input — the production
-        # window-BA path (always stereo) keeps the fused build.
-        from stereo_semantic_vo_tpu.kernels.ba_hessian import local_ba_blocks
-
-        urmT = None
-        if obs_ur is not None:
-            rm = (
-                obs_r_mask if obs_r_mask is not None
-                else jnp.ones_like(obs_ur, bool)
-            )
-            urmT = jnp.stack([obs_ur, rm.astype(jnp.float32)], axis=1)
-        Hcc, Hcp, Hpp, gc, gp, cost = local_ba_blocks(
-            poses,
-            points.T,
-            jnp.swapaxes(obs_uv, 1, 2),
-            obs_mask.astype(jnp.float32),
-            cam,
-            float(huber_delta),
-            urmT=urmT,
-        )
-        return NormalEq(Hcc=Hcc, Hcp=Hcp, Hpp=Hpp, gc=gc, gp=gp, cost=cost)
     r, w, Jc, Jp, cost = _residual_and_jacobians(
         poses, points, obs_uv, obs_mask, cam, huber_delta, obs_ur, obs_r_mask
     )
@@ -232,7 +207,6 @@ def local_ba(
         po, pt, lam, cost = carry
         eq = build_normal_equations(
             po, pt, obs_uv, obs_mask, cam, cfg.huber_delta,
-            backend=resolve_backend(cfg.local_hessian_backend, "pallas", "xla"),
             obs_ur=obs_ur, obs_r_mask=obs_r_mask,
         )
         dx_c, dx_p = schur_solve(eq, lam, point_valid, fix_first_pose)

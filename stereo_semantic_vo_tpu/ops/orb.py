@@ -1,10 +1,10 @@
-"""ORB feature frontend, TPU-native.
+"""ORB feature frontend, fixed-shape and vectorized.
 
 Replaces cv::ORB::detectAndCompute (reference frame.cc:75-79: 500 features,
 8 levels, scale 1.2) with a fully vectorized, fixed-shape pipeline:
 
 * FAST-9/16 corner test evaluated for *every* pixel at once (16 rolled copies
-  of the image, boolean arc reduction on the VPU) instead of a serial pixel
+  of the image, boolean arc reduction in one fused pass) instead of a serial pixel
   scan.
 * 3x3 non-max suppression + per-grid-cell top-k selection so the keypoint
   tensor has a static shape (the reference's fixed N=500 slot array,
@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from stereo_semantic_vo_tpu.core.config import ORBConfig, resolve_backend
+from stereo_semantic_vo_tpu.core.config import ORBConfig
 
 # FAST-9/16 Bresenham circle of radius 3, clockwise from 12 o'clock: (dy, dx)
 _CIRCLE = np.array(
@@ -142,10 +142,9 @@ def _grid_topk(score: jax.Array, rows: int, cols: int, k_cell: int):
 
 def _smooth(img: jax.Array, width: int = 5) -> jax.Array:
     """width x width box blur (separable) — BRIEF's noise-robust sampling
-    surface.  Implemented as two reduce_window sums: measured ~50x faster
-    than conv_general_dilated for single-channel images on v5e (XLA's conv
-    path is tuned for many-channel NN convs, not 1-channel image filters;
-    reduce_window lowers straight to VPU shifts+adds)."""
+    surface.  Implemented as two reduce_window sums (XLA's conv path is
+    tuned for many-channel NN convs, not 1-channel image filters;
+    reduce_window lowers straight to shifted adds)."""
     inv = jnp.asarray(1.0 / (width * width), img.dtype)
     x = jax.lax.reduce_window(img, 0.0, jax.lax.add, (1, width), (1, 1), "SAME")
     x = jax.lax.reduce_window(x, 0.0, jax.lax.add, (width, 1), (1, 1), "SAME")
@@ -166,79 +165,49 @@ def _patches(img: jax.Array, xy: jax.Array, r: int) -> jax.Array:
 
 
 @functools.lru_cache(maxsize=None)
-def _ic_weights(half: int, rows: int, cols: int) -> tuple[np.ndarray, np.ndarray]:
-    """Intensity-centroid moment weights laid out for a (rows, cols) patch
-    slab whose (2*half+1)^2 patch sits at [0:P, 0:P] (rows=cols=P for tight
-    XLA patches; rows=32, cols=128 for the Pallas slab layout — the padding
-    gets zero weight, so the layout difference vanishes in the matvec)."""
+def _ic_weights(half: int) -> tuple[np.ndarray, np.ndarray]:
+    """Intensity-centroid moment weights of a (2*half+1)^2 patch, flattened:
+    x and y offsets inside the circular mask, zero outside it."""
     r = half
-    P = 2 * r + 1
     dy, dx = np.mgrid[-r : r + 1, -r : r + 1]
     circle = (dx * dx + dy * dy) <= r * r
-    wx = np.zeros((rows, cols), np.float32)
-    wy = np.zeros((rows, cols), np.float32)
-    wx[:P, :P] = dx * circle
-    wy[:P, :P] = dy * circle
-    return wx.reshape(-1), wy.reshape(-1)
+    return ((dx * circle).astype(np.float32).reshape(-1),
+            (dy * circle).astype(np.float32).reshape(-1))
 
 
 def _orientation_from_patches(patches: jax.Array, half: int) -> jax.Array:
-    """Intensity-centroid angle from pre-extracted (N, rows, cols) patch
-    slabs (patch at [:, :P, :P]). The circular-mask moment sums are two
-    static matvecs (MXU-friendly)."""
-    wx_np, wy_np = _ic_weights(half, patches.shape[1], patches.shape[2])
+    """Intensity-centroid angle from pre-extracted (N, P, P) patches. The
+    circular-mask moment sums are two static matvecs."""
+    wx_np, wy_np = _ic_weights(half)
     wx = jnp.asarray(wx_np)
     wy = jnp.asarray(wy_np)
     flat = patches.reshape(patches.shape[0], -1)
-    # full f32 accumulation: the default bf16 dot precision would jitter the
-    # angle and flip outer-radius BRIEF bits
+    # full f32 accumulation: a default-precision dot (TF32 on the GPU) would
+    # jitter the angle and flip outer-radius BRIEF bits
     hp = jax.lax.Precision.HIGHEST
     m10 = jnp.dot(flat, wx, precision=hp)
     m01 = jnp.dot(flat, wy, precision=hp)
     return jnp.arctan2(m01, m10)
 
 
-def _get_patches(img: jax.Array, xy: jax.Array, r: int, backend: str) -> jax.Array:
-    """Patch slabs around keypoints: (N, P, P) via vmapped dynamic_slice
-    ("xla") or (N, 32, 128) via the tile-DMA kernel ("pallas",
-    kernels/patch_extract.py — measured 4x faster on v5e; the consumers'
-    weight matrices absorb the slab layout).  Both place the patch at
-    [:, :P, :P] with the same clamped origin."""
-    if backend == "pallas":
-        from stereo_semantic_vo_tpu.kernels.patch_extract import extract_patches
-
-        H, W = img.shape
-        P = 2 * r + 1
-        y0 = jnp.clip(xy[:, 1].astype(jnp.int32) - r, 0, H - P)
-        x0 = jnp.clip(xy[:, 0].astype(jnp.int32) - r, 0, W - P)
-        return extract_patches(img, y0, x0, r)
-    return _patches(img, xy, r)
-
-
-def _orientation(img: jax.Array, xy: jax.Array, half: int, backend: str = "xla") -> jax.Array:
+def _orientation(img: jax.Array, xy: jax.Array, half: int) -> jax.Array:
     """Intensity-centroid angle for keypoints at integer coords xy (N, 2)=(x,y)."""
-    return _orientation_from_patches(_get_patches(img, xy, half, backend), half)
+    return _orientation_from_patches(_patches(img, xy, half), half)
 
 
 @functools.lru_cache(maxsize=None)
-def _upright_onehots(
-    seed: int, n_bits: int, patch: int, rows: int = 0, cols: int = 0
-) -> tuple[np.ndarray, np.ndarray]:
-    """Static (rows*cols, n_bits) one-hot sampling matrices for the
-    un-rotated BRIEF pattern: endpoint intensities become two MXU matmuls
-    instead of 2*n_bits scattered gathers per keypoint.  rows/cols default
-    to the tight P x P layout; the Pallas slab layout (32, 128) folds its
-    padding stride into the matrix instead of re-slicing the slab."""
+def _upright_onehots(seed: int, n_bits: int, patch: int) -> tuple[np.ndarray, np.ndarray]:
+    """Static (P*P, n_bits) one-hot sampling matrices for the un-rotated
+    BRIEF pattern: endpoint intensities become two matmuls instead of
+    2*n_bits scattered gathers per keypoint."""
     pts = brief_pattern(seed, n_bits, patch)  # (n_bits, 4): y1 x1 y2 x2
     r = patch // 2
     P = 2 * r + 1
-    rows = rows or P
-    cols = cols or P
-    s1 = np.zeros((rows * cols, n_bits), np.float32)
-    s2 = np.zeros((rows * cols, n_bits), np.float32)
+    s1 = np.zeros((P * P, n_bits), np.float32)
+    s2 = np.zeros((P * P, n_bits), np.float32)
     for j, (y1, x1, y2, x2) in enumerate(pts):
-        s1[(y1 + r) * cols + (x1 + r), j] = 1.0
-        s2[(y2 + r) * cols + (x2 + r), j] = 1.0
+        s1[(y1 + r) * P + (x1 + r), j] = 1.0
+        s2[(y2 + r) * P + (x2 + r), j] = 1.0
     return s1, s2
 
 
@@ -250,16 +219,13 @@ def _pack_bits(bits: jax.Array) -> jax.Array:
 
 
 def _describe_upright(patches: jax.Array, seed: int, n_bits: int, patch: int) -> jax.Array:
-    """Upright BRIEF from pre-extracted (N, rows, cols) patch slabs (patch
-    at [:, :P, :P]): two static one-hot matmuls on the MXU (the gather-free
-    formulation; the pattern never rotates so the sampling matrix is shared
-    by every keypoint)."""
-    s1, s2 = _upright_onehots(
-        seed, n_bits, patch, patches.shape[1], patches.shape[2]
-    )
+    """Upright BRIEF from pre-extracted (N, P, P) patches: two static
+    one-hot matmuls (the gather-free formulation; the pattern never rotates
+    so the sampling matrix is shared by every keypoint)."""
+    s1, s2 = _upright_onehots(seed, n_bits, patch)
     flat = patches.reshape(patches.shape[0], -1)
     # HIGHEST precision: a one-hot dot is an exact selection in full f32 but
-    # the TPU's default bf16 dot precision would quantize intensities and
+    # a default-precision dot (TF32 on the GPU) would quantize intensities and
     # flip near-tie comparison bits
     hp = jax.lax.Precision.HIGHEST
     i1 = jnp.dot(flat, jnp.asarray(s1), precision=hp)
@@ -317,11 +283,6 @@ def extract_orb(image: jax.Array, cfg: ORBConfig) -> Keypoints:
     # strong (iniThFAST) corners must always outrank weak-cell (minThFAST)
     # fallbacks, both inside a grid cell and in the global top-K
     bonus = jnp.float32(1e6)
-    # "auto" knobs -> measured platform winners (kernel_bench.json): FAST
-    # scoring stays XLA everywhere; patch extraction is the Pallas tile-DMA
-    # kernel on TPU, vmapped dynamic_slice off-TPU
-    fast_backend = resolve_backend(cfg.fast_backend, "xla", "xla")
-    patch_backend = resolve_backend(cfg.patch_backend, "pallas", "xla")
     img_l = image
     for level in range(cfg.n_levels):
         Hl, Wl = img_l.shape
@@ -331,12 +292,7 @@ def extract_orb(image: jax.Array, cfg: ORBConfig) -> Keypoints:
             if two_pass
             else (float(cfg.fast_threshold),)
         )
-        if fast_backend == "pallas":
-            from stereo_semantic_vo_tpu.kernels.fast_score import fast_scores_pallas
-
-            scores = fast_scores_pallas(img_l, ths)
-        else:
-            scores = _fast_score(img_l, *ths)
+        scores = _fast_score(img_l, *ths)
         # kill borders (circle radius + descriptor patch)
         b = cfg.border
         border_mask = jnp.zeros((Hl, Wl), bool).at[b : Hl - b, b : Wl - b].set(True)
@@ -362,15 +318,13 @@ def extract_orb(image: jax.Array, cfg: ORBConfig) -> Keypoints:
         # orientation from the smoothed image: the IC angle jitters badly on
         # raw pixels and every degree of jitter flips outer-radius BRIEF bits
         if cfg.steer:
-            angle = _orientation(img_s, xy, cfg.half_patch, patch_backend)
+            angle = _orientation(img_s, xy, cfg.half_patch)
             desc = _describe(img_s, xy, angle, pattern)
         else:
             # upright BRIEF: one patch slab per keypoint + two static
-            # one-hot MXU matmuls — no scattered gathers at all
+            # one-hot matmuls — no scattered gathers at all
             angle = jnp.zeros(xy.shape[0], img_l.dtype)
-            patches = _get_patches(
-                img_s, xy, cfg.patch_size // 2, patch_backend
-            )
+            patches = _patches(img_s, xy, cfg.patch_size // 2)
             desc = _describe_upright(
                 patches, cfg.brief_seed, cfg.descriptor_bits, cfg.patch_size
             )

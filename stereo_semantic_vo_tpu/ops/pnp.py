@@ -2,7 +2,7 @@
 
 The reference calls cv::solvePnPRansac(iterations=100, reproj=8.0 px,
 conf=0.99) per frame (pnpmatch.cc:227) — a sequential hypothesis loop.  The
-TPU-native design evaluates ``num_hypotheses`` minimal DLT solves *in
+This design evaluates ``num_hypotheses`` minimal DLT solves *in
 parallel* (a vmapped batch of 12x12 eigenproblems) and scores every
 hypothesis against every correspondence at once — a (B, K) reprojection
 tensor — then polishes the argmax-inlier hypothesis with the same LM used by
@@ -44,7 +44,7 @@ def smallest_eigvec(M: jax.Array, iters: int = 8) -> jax.Array:
     """Eigenvector of the smallest eigenvalue of a small PSD matrix by
     shifted inverse iteration (one Cholesky + ``iters`` triangular solves).
 
-    TPU-friendly replacement for full eigh: batched 12x12 QR-iteration eigh
+    Batch-friendly replacement for full eigh: batched 12x12 QR-iteration eigh
     dominated the RANSAC hypothesis batch (~9 ms); this runs in a fraction of
     that and vmaps cleanly.
     """

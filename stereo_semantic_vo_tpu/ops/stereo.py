@@ -3,9 +3,9 @@
 The reference runs a full dense MSA spanning-tree disparity solve per frame
 (frame.cc:82-91 -> Thirdparty/MB/MSA.cpp:1132) and then *samples it at the
 ~500 keypoints only* (computekeypoint_r frame.cc:122-138, disp2Depth
-:140-164).  The TPU-native design inverts this: correlate a small window
+:140-164).  This design inverts that: correlate a small window
 along the epipolar line at each keypoint directly — a (K, D) cost tensor
-evaluated in one shot on the VPU — which is all the pipeline consumes and is
+evaluated in one shot — which is all the pipeline consumes and is
 orders of magnitude less work than the dense solve.  (A dense cost-volume
 engine lives in ops/dense_stereo.py for the full-disparity use case.)
 
@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from stereo_semantic_vo_tpu.core.camera import Camera, disparity_to_depth
-from stereo_semantic_vo_tpu.core.config import StereoConfig, resolve_backend
+from stereo_semantic_vo_tpu.core.config import StereoConfig
 
 
 class StereoMatch(NamedTuple):
@@ -62,9 +62,7 @@ def sparse_disparity(
     gr = _xgrad(right)
     d_idx = jnp.arange(D)[None, :]
 
-    # "auto" -> platform winner at dispatch time (kernel_bench.json: the
-    # Pallas aligned-tile kernel on TPU; the scanned cost-volume off-TPU)
-    mode = resolve_backend(cfg.sparse_mode, "pallas", "volume")
+    mode = cfg.sparse_mode
     if mode == "dense":
         # reference-faithful path: full dense disparity (SGM engine standing
         # in for MSA), sampled at the keypoints (frame.cc:82-164 order)
@@ -126,25 +124,6 @@ def sparse_disparity(
         _, costs_dk = jax.lax.scan(scan_body, None, jnp.arange(D))  # (D, K)
         costs = costs_dk.T
         addressable = (x[:, None] - d_idx) >= r
-        costs = jnp.where(addressable, costs, big)
-    elif mode == "pallas":
-        # fused per-keypoint tile kernel (kernels/sparse_stereo.py): DMA only
-        # aligned tiles covering the strips, disparity axis on VPU lanes,
-        # gradients derived in-kernel
-        from stereo_semantic_vo_tpu.kernels.sparse_stereo import keypoint_stereo_costs
-
-        Ws = D + 2 * r
-        y0 = jnp.clip(y - r, 0, H - P)
-        xl0 = jnp.clip(x - r, 0, W - P)
-        xr0_raw = x - (D - 1) - r
-        xr0 = jnp.clip(xr0_raw, 0, W - Ws)
-        shift = xr0 - xr0_raw
-        acc = keypoint_stereo_costs(
-            left, right, y0, xl0, xr0, D, r,
-            cfg.color_weight, cfg.grad_weight, cfg.color_trunc, cfg.grad_trunc,
-        )
-        costs = acc[:, ::-1]  # strip offset s = D-1-d -> disparity order
-        addressable = (D - 1 - d_idx) >= shift[:, None]
         costs = jnp.where(addressable, costs, big)
     else:  # "strips": per-keypoint row strips (fewer FLOPs, gather-heavy)
         Ws = D + 2 * r

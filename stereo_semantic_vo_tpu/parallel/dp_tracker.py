@@ -1,7 +1,7 @@
 """Data-parallel tracking: N independent sequence streams over the mesh.
 
 The reference processes one sequence on one CPU.  For fleet-scale offline
-odometry (mapping runs, dataset evaluation sweeps) the TPU build shards a
+odometry (mapping runs, dataset evaluation sweeps) this build shards a
 *batch of sequences* over the ``data`` axis: each device carries the VOState
 of its own streams and executes the same jitted tracking step — pure SPMD,
 no cross-device traffic during tracking (collectives only appear in the

@@ -1,9 +1,9 @@
-"""Device mesh helpers for multi-chip scaling.
+"""Device mesh helpers for multi-device scaling.
 
 The reference has no distributed layer at all (SURVEY.md §2.3: no MPI/NCCL,
-one optional thread).  The TPU build scales through ``jax.sharding``: one
+one optional thread).  This build scales through ``jax.sharding``: one
 mesh, named axes, shardings annotated at function boundaries, XLA inserting
-the ICI collectives.  These helpers centralize mesh construction so engine,
+the collectives (NCCL on GPUs).  These helpers centralize mesh construction so engine,
 BA, and the semantic head agree on axis names:
 
 * ``landmark`` — the BA landmark-block axis (Schur elimination is local per

@@ -3,7 +3,7 @@
 SURVEY.md §2.3 item 3 / BASELINE.json: "replicating the semantic-detection
 head per host".  The YOLO weights are replicated; frames are sharded over the
 ``data`` axis, so every device runs detection on its own stream — the
-TPU-native analogue of the reference's one-GPU-per-process darknet thread
+on-device analogue of the reference's one-GPU-per-process darknet thread
 (src/semantic.cc), with no shared mutable state to race on.
 """
 

@@ -4,14 +4,14 @@ The one genuinely distributed workload in the system (SURVEY.md §2.3 item 2,
 BASELINE.json north star): landmark blocks are sharded across devices; each
 device eliminates its own landmark diagonal locally (the Schur trick is
 embarrassingly parallel over landmarks) and the (F*6)^2 reduced camera system
-is formed with a single ``psum`` over the mesh — the TPU-native analogue of
-g2o's BlockSolver (Thirdparty/g2o/g2o/core/block_solver.hpp) with ICI
-collectives in place of a shared heap.
+is formed with a single ``psum`` over the mesh — the collective analogue of
+g2o's BlockSolver (Thirdparty/g2o/g2o/core/block_solver.hpp) with device
+collectives (NCCL over NVLink on GPUs) in place of a shared heap.
 
 Per LM iteration, per device with L/D local landmarks:
-  1. residuals/Jacobians for (F, L/D) observations        — local VPU work
+  1. residuals/Jacobians for (F, L/D) observations        — local work
   2. Hcc, gc, S-contribution, rhs-contribution            — local einsums
-  3. psum -> every device holds the full reduced system   — one ICI collective
+  3. psum -> every device holds the full reduced system   — one collective
   4. 24x24 solve (replicated, negligible)                 — local
   5. back-substitute own landmark updates                 — local
   6. psum(cost) drives the shared accept/reject + damping — one scalar psum

@@ -21,7 +21,7 @@ import json
 
 
 def main() -> None:
-    p = argparse.ArgumentParser(description="TPU-native stereo semantic VO")
+    p = argparse.ArgumentParser(description="Stereo semantic VO in JAX")
     p.add_argument("--sequence", required=True, help="KITTI sequence dir (times.txt, image_2/, image_3/)")
     p.add_argument("--seq-id", default="00", help="KITTI sequence id for intrinsics (00..12)")
     p.add_argument("--boxes-dir", default=None, help="offline YOLO box files dir (<frame+1>.txt)")

@@ -1,9 +1,11 @@
 """Persistent XLA compilation cache.
 
-The full tracking step is a large XLA program (~2-4 min first compile on a
-TPU backend).  Enabling JAX's persistent cache makes every subsequent
+The full tracking step is a large XLA program whose first compile takes
+tens of seconds.  Enabling JAX's persistent cache makes every subsequent
 process start in seconds — essential for the CLI, benchmarks, and tests that
-respawn interpreters.
+respawn interpreters.  ``JAX_COMPILATION_CACHE_DIR`` wins when set;
+otherwise the cache lives at a fixed, git-ignored ``.jax_cache/`` in the
+checkout (the directory is part of the cache key, so it must not move).
 """
 
 from __future__ import annotations

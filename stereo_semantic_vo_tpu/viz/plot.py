@@ -3,7 +3,7 @@
 Replaces the reference's Pangolin immediate-mode viewer (src/view.cc:
 DrawGraph green trajectory segments, DrawMappoints colored point cloud;
 main.cpp:117-136 window setup) with matplotlib figures written to disk —
-TPU hosts are headless, and visualization must never stall the tracker the
+Accelerator hosts are headless, and visualization must never stall the tracker the
 way the reference's GL FinishFrame + cv::waitKey do.
 """
 

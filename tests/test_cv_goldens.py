@@ -6,7 +6,7 @@ cv::findFundamentalMat (pnpmatch.cc:336).  tools/cv_goldens.cpp runs those
 exact calls on committed inputs (real urban fixtures for ORB; deterministic
 street-scale correspondence sets with gross outliers for the solvers —
 tools/make_cv_inputs.py) and the outputs live in tests/fixtures/cv/.  These
-tests hold the TPU-native implementations to those goldens the same way the
+tests hold this repository's implementations to those goldens the same way the
 MSA dense engine got reference goldens in round 2 (round-3 verdict,
 missing #3).
 

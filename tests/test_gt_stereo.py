@@ -1,13 +1,13 @@
-"""Ground-truth stereo accuracy: TPU-native SGM vs the reference MSA engine.
+"""Ground-truth stereo accuracy: the SGM engine vs the reference MSA engine.
 
 Fixtures generated by tools/gt_stereo_experiment.py: synthetic scenes with
 *exact* disparity GT (forward-splat rendering), MSA's output produced by the
 unmodified reference solver (tools/msa_driver.cpp oracle).  The committed
 conclusion (docs/REAL_IMAGES.md "Attribution"): the 0.6-0.7 agree@3px floor
 between the two engines on the real urban pairs is *divergence on ambiguous
-content*, not a quality deficit — on measurable ground truth the TPU engine
+content*, not a quality deficit — on measurable ground truth the SGM engine
 is at least as accurate as MSA on every scene, clean or degraded, and the
-engines' mutual agreement drops BELOW the TPU engine's own GT accuracy
+engines' mutual agreement drops BELOW the SGM engine's own GT accuracy
 exactly when conditions degrade (they disagree mostly where MSA is wrong).
 """
 

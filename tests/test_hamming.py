@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from stereo_semantic_vo_tpu.kernels import hamming
 
@@ -32,13 +33,6 @@ class TestHammingDistance:
         qpm = hamming.unpack_descriptors_pm1(q)
         tpm = hamming.unpack_descriptors_pm1(t)
         got = hamming.hamming_distance_matrix_mxu(qpm, tpm)
-        np.testing.assert_array_equal(got, ref)
-
-    def test_pallas_path_exact(self):
-        q = random_desc(jax.random.PRNGKey(4), 256)
-        t = random_desc(jax.random.PRNGKey(5), 256)
-        ref = hamming.hamming_distance_matrix(q, t)
-        got = hamming.hamming_distance_matrix_pallas(q, t)
         np.testing.assert_array_equal(got, ref)
 
     def test_identical_descriptors_zero(self):
@@ -76,3 +70,57 @@ class TestMaskedBestMatch:
             dist, jnp.array([False]), jnp.array([True, True])
         )
         assert int(best[0]) == hamming.DESC_BITS + 1
+
+
+def numpy_best_two(dist, qv, tv, big=hamming.DESC_BITS + 1):
+    """Brute-force row-wise best and second-best over valid pairs."""
+    dist = np.asarray(dist)
+    best = np.full(dist.shape[0], big)
+    second = np.full(dist.shape[0], big)
+    for i in range(dist.shape[0]):
+        if not qv[i]:
+            continue
+        row = np.sort(dist[i][np.asarray(tv)])
+        if len(row) > 0:
+            best[i] = row[0]
+        if len(row) > 1:
+            second[i] = row[1]
+    return best, second
+
+
+class TestMatcherForms:
+    """Both matcher forms (MatcherConfig.backend) through masked_best_match
+    against a numpy brute force: the XOR+popcount distance on packed words
+    and the +-1 int8 matmul on unpacked descriptors."""
+
+    @pytest.mark.parametrize("form", ["popcount", "mxu"])
+    @pytest.mark.parametrize("nq,nt,seed", [(256, 512, 0), (512, 2048, 1), (37, 129, 2)])
+    def test_best_two_match_brute_force(self, form, nq, nt, seed):
+        k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
+        q = random_desc(k1, nq)
+        t = random_desc(k2, nt)
+        # plant exact and near duplicates so the gates' range is exercised
+        t = t.at[: min(8, nq)].set(q[: min(8, nq)])
+        t = t.at[8:16].set(jnp.bitwise_xor(q[:8], jnp.uint32(0x3)))
+        qv = np.arange(nq) % 5 != 0
+        tv = np.arange(nt) % 7 != 0
+        if form == "popcount":
+            dist = hamming.hamming_distance_matrix(q, t)
+        else:
+            dist = hamming.hamming_distance_matrix_mxu(
+                hamming.unpack_descriptors_pm1(q), hamming.unpack_descriptors_pm1(t)
+            )
+        ref = numpy_hamming(q, t)
+        np.testing.assert_array_equal(np.asarray(dist), ref)
+        idx, best, second = hamming.masked_best_match(
+            dist, jnp.asarray(qv), jnp.asarray(tv)
+        )
+        ref_best, ref_second = numpy_best_two(ref, qv, tv)
+        np.testing.assert_array_equal(np.asarray(best), ref_best)
+        np.testing.assert_array_equal(np.asarray(second), ref_second)
+        # argmin ties may resolve to any equal index: the chosen one must be
+        # a valid train slot at the best distance
+        rows = np.nonzero(qv)[0]
+        chosen = np.asarray(idx)[rows]
+        assert tv[chosen].all()
+        np.testing.assert_array_equal(ref[rows, chosen], ref_best[rows])

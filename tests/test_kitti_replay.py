@@ -186,7 +186,7 @@ class TestNative10Hz:
     * 10 Hz-scaled config gates (search radius / pose-jump / velocity /
       Hamming gate, plus the pose-jump inlier escape hatch that breaks the
       poisoned-velocity death spiral).
-    Measured at this config: 5.0% ATE (CPU) / 4.8% (TPU, pre-stereo)."""
+    Measured at this config: 5.0% ATE (CPU)."""
 
     def test_native_spacing_bounded(self):
         gt = load_kitti_gt(n=40)

@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from stereo_semantic_vo_tpu.core.config import ORBConfig
 from stereo_semantic_vo_tpu.kernels import hamming
@@ -185,3 +186,31 @@ class TestMinThresholdFallback:
             if v
         }
         assert strong_no <= strong_fb, "fallback must only add keypoints"
+
+
+class TestPatches:
+    """ops/orb._patches (the vmapped dynamic_slice that feeds orientation and
+    upright BRIEF) against numpy slicing with the same clamped origin."""
+
+    @pytest.mark.parametrize("case", ["interior", "edges", "corners"])
+    def test_matches_numpy_at_borders(self, case):
+        H, W, r = 120, 400, 15
+        P = 2 * r + 1
+        rng = np.random.RandomState(3)
+        img = rng.uniform(0, 255, (H, W)).astype(np.float32)
+        if case == "interior":
+            xs = rng.randint(r, W - r, 40)
+            ys = rng.randint(r, H - r, 40)
+        elif case == "edges":
+            xs = np.array([0, 3, W - 1, W - 4, 200, 200, 150, 151])
+            ys = np.array([60, 61, 62, 63, 0, H - 1, 2, H - 3])
+        else:
+            xs = np.array([0, W - 1, 0, W - 1, 1, W - 2])
+            ys = np.array([0, 0, H - 1, H - 1, 1, H - 2])
+        xy = jnp.asarray(np.stack([xs, ys], -1).astype(np.int32))
+        got = np.asarray(orb._patches(jnp.asarray(img), xy, r))
+        assert got.shape == (len(xs), P, P)
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            y0 = min(max(y - r, 0), H - P)
+            x0 = min(max(x - r, 0), W - P)
+            np.testing.assert_array_equal(got[i], img[y0 : y0 + P, x0 : x0 + P])

@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 from scipy.signal import convolve2d
 
 from stereo_semantic_vo_tpu.core import Camera, CameraConfig
@@ -88,3 +89,31 @@ class TestSparseDisparity:
         kv = jnp.zeros(len(uv), bool)
         m = sparse_disparity(jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv), kv, CAM, CFG)
         assert not bool(m.valid.any())
+
+
+class TestSparseModes:
+    """The two whole-XLA sparse forms (StereoConfig.sparse_mode) compute the
+    same window cost: per-keypoint strips and the whole-image shifted-map
+    volume must agree on validity and sub-pixel disparity away from the
+    image edges (where the volume's wrapped shifts and zero-padded box
+    filter differ from the strips' clamped windows by design)."""
+
+    @pytest.mark.parametrize("d_true,seed", [(5, 4), (12, 5), (30, 6)])
+    def test_strips_match_volume(self, d_true, seed):
+        left = textured(seed)
+        right = np.roll(left, -d_true, axis=1)
+        uv = grid_keypoints(*left.shape)
+        args = (jnp.asarray(left), jnp.asarray(right), jnp.asarray(uv),
+                jnp.ones(len(uv), bool), CAM)
+        a = sparse_disparity(*args, StereoConfig(sparse_mode="strips"))
+        b = sparse_disparity(*args, StereoConfig(sparse_mode="volume"))
+        np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
+        va = np.asarray(a.valid)
+        assert va.mean() > 0.8
+        # float32 sums in another order: sub-pixel interpolation noise only
+        np.testing.assert_allclose(
+            np.asarray(a.disparity)[va], np.asarray(b.disparity)[va], atol=1e-3
+        )
+        np.testing.assert_allclose(
+            np.asarray(a.cost)[va], np.asarray(b.cost)[va], rtol=1e-4
+        )

@@ -1,4 +1,7 @@
+import os
+
 import numpy as np
+import pytest
 
 from stereo_semantic_vo_tpu.core.config import VOConfig, ORBConfig, CameraConfig
 from stereo_semantic_vo_tpu.engine.state import init_state
@@ -31,3 +34,33 @@ class TestStageTimer:
         s = t.summary()
         assert s["a"]["n"] == 3 and s["a"]["median_s"] >= 0.0
         assert "a" in t.report()
+
+
+class TestPersistentCache:
+    """utils/cache.enable_persistent_cache: ``JAX_COMPILATION_CACHE_DIR``
+    wins when set; otherwise the fixed, git-ignored ``.jax_cache`` of the
+    checkout (a fixed path, because the path is part of the cache key)."""
+
+    @pytest.mark.parametrize("from_env", [True, False])
+    def test_cache_dir(self, from_env, tmp_path, monkeypatch):
+        import jax
+
+        from stereo_semantic_vo_tpu.utils.cache import enable_persistent_cache
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        if from_env:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+            want = str(tmp_path / "c")
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            want = os.path.join(repo, ".jax_cache")
+        before = (jax.config.jax_compilation_cache_dir,
+                  jax.config.jax_persistent_cache_min_compile_time_secs)
+        try:
+            got = enable_persistent_cache()
+            assert got == want
+            assert os.path.isdir(want)
+            assert jax.config.jax_compilation_cache_dir == want
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before[0])
+            jax.config.update("jax_persistent_cache_min_compile_time_secs", before[1])

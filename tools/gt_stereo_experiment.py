@@ -1,5 +1,5 @@
 """Ground-truth experiment: is the 0.6-0.7 agree@3px floor between the
-TPU-native SGM engine and the reference MSA engine a *quality deficit* or a
+SGM engine and the reference MSA engine a *quality deficit* or a
 *divergence between two imperfect engines*?
 
 The vendored real fixtures ship no ground truth (only stereo pairs,
@@ -11,7 +11,7 @@ with synthetic scenes whose disparity is exact by construction:
    forward splat (occlusions arise naturally at depth boundaries);
 2. runs the *reference* MSA solver on them (tools/msa_driver.cpp — the
    unmodified MSA.cpp as an oracle binary, /tmp/msa_build/msa_ref);
-3. runs the TPU-native dense engine (ops/dense_stereo.py);
+3. runs the dense SGM engine (ops/dense_stereo.py);
 4. reports each engine's accuracy vs GT on non-occluded pixels, plus their
    mutual agreement — if both engines score high vs GT while mutual
    agreement stays near the real-fixture floor, the floor is divergence

@@ -4,7 +4,7 @@
 //
 // Purpose: generate golden disparity maps from the reference's actual
 // disparity engine so tests/test_real_images.py can quantify how close the
-// TPU-native SGM engine (stereo_semantic_vo_tpu/ops/dense_stereo.py) comes
+// SGM engine (stereo_semantic_vo_tpu/ops/dense_stereo.py) comes
 // to MSA::solve (MSA.cpp:1132-1169) on the reference's vendored fixtures.
 //
 // Usage: msa_ref <left> <right> <ndisp> <scale> <out.pgm>

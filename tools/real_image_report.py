@@ -1,4 +1,4 @@
-"""Quality report: TPU-native dense SGM vs the reference MSA solver, plus
+"""Quality report: dense SGM vs the reference MSA solver, plus
 ORB left/right matching, on the reference's vendored real stereo fixtures.
 
 Prints one line per fixture with density / agreement metrics; used to
